@@ -12,10 +12,10 @@ test: native
 	python -m pytest tests/ -q
 
 selftest: native
-	python3 -m rtlsdr_ft8d_tpu.host.cli -t
+	python3 -m rtlsdr_ft8d_jax.host.cli -t
 
 smoke: native
-	python3 scripts/tpu_smoke.py
+	python3 chip_smoke.py
 
 bench: native
 	python3 bench.py
@@ -24,9 +24,9 @@ bench: native
 # test that crosses the ctypes boundary (codec parity + fuzz, IPFIX wire
 # format, ingest ring, OSD batch) executes against the sanitized build.
 # detect_leaks=0: CPython interns/arenas report as leaks; the target is
-# heap-buffer/UB errors in libft8tpu, which abort the run
+# heap-buffer/UB errors in libft8d, which abort the run
 # (-fno-sanitize-recover=all). Pure-Python fallbacks are disabled so a
-# load failure cannot silently pass (FT8_TPU_REQUIRE_NATIVE=1).
+# load failure cannot silently pass (FT8D_REQUIRE_NATIVE=1).
 # libstdc++ must be preloaded with libasan: python doesn't link it, so
 # ASan's __cxa_throw interceptor would otherwise be uninitialized and
 # jaxlib's first C++ throw aborts the interpreter.
@@ -44,10 +44,10 @@ sanitize:
 	LD_PRELOAD="$$($(CXX) -print-file-name=libasan.so) $$($(CXX) -print-file-name=libstdc++.so)" \
 	ASAN_OPTIONS=detect_leaks=0:abort_on_error=1 \
 	UBSAN_OPTIONS=halt_on_error=1:print_stacktrace=1 \
-	FT8_TPU_NATIVE_SO=$(CURDIR)/native/libft8tpu_asan.so \
-	FT8_TPU_REQUIRE_NATIVE=1 \
+	FT8D_NATIVE_SO=$(CURDIR)/native/libft8d_asan.so \
+	FT8D_REQUIRE_NATIVE=1 \
 	python -m pytest $(SANITIZE_TESTS) -q
 
 clean:
-	$(MAKE) -C native clean 2>/dev/null || rm -f native/libft8tpu.so
+	$(MAKE) -C native clean 2>/dev/null || rm -f native/libft8d.so
 	find . -name __pycache__ -type d -exec rm -rf {} + 2>/dev/null || true

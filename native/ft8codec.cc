@@ -4,7 +4,7 @@
 // submodule, consumed at /root/reference/rtlsdr_ft8d.c:38-44): CRC-14,
 // LDPC(174,91) systematic encode, Gray/Costas tone mapping, pack77/unpack77
 // message grammar. Exposed with a C ABI for ctypes (pybind11 is not in this
-// image). The Python implementation (rtlsdr_ft8d_tpu/protocol/) is the
+// image). The Python implementation (rtlsdr_ft8d_jax/protocol/) is the
 // reference; tests assert byte-parity between the two.
 
 #include <cctype>
@@ -470,7 +470,7 @@ bool try_pack_nonstd(char toks[8][16], int ntok, uint8_t* bits) {
 }  // namespace
 
 // pack77: message text -> 77 bits; returns 0 on success (standard/free
-// text), <0 on hard failure. Mirrors rtlsdr_ft8d_tpu/protocol/pack.py.
+// text), <0 on hard failure. Mirrors rtlsdr_ft8d_jax/protocol/pack.py.
 int ft8_pack77(const char* text_in, uint8_t* bits77) {
   // normalize whitespace + uppercase
   char text[64];

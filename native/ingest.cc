@@ -6,7 +6,7 @@
 // consumer ring instead of the reference's timing-based buffer ownership
 // (a data race by design, SURVEY.md §5). The producer is the SDR callback
 // (or file/socket reader); the consumer drains full 15-s windows for the
-// TPU decimator. The fs/4 mixer runs here on int8 exactly like the
+// device decimator. The fs/4 mixer runs here on int8 exactly like the
 // reference's XOR trick (c:116-140): multiply by {1,-j,-1,j} is sign flips
 // and I/Q swaps, staying int8 end to end.
 

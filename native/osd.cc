@@ -1,5 +1,5 @@
 // Ordered-statistics decoding of LDPC(174,91) BP failures — native fast
-// path for the host OSD stage (rtlsdr_ft8d_tpu/ops/osd.py documents the
+// path for the host OSD stage (rtlsdr_ft8d_jax/ops/osd.py documents the
 // algorithm; this implements the same order-1 + partial order-2
 // reprocessing with identical selection/acceptance rules so decode lists
 // match the Python path bit for bit).

@@ -5,17 +5,19 @@ decode-mask helper. One copy so a change to the normalization or the
 sigma formula cannot silently skew one script's numbers against the
 others."""
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 import jax.numpy as jnp
 import numpy as np
 
-from rtlsdr_ft8d_tpu.ops.ldpc import bp_decode, crc_check
-from rtlsdr_ft8d_tpu.ops.sync import find_sync
-from rtlsdr_ft8d_tpu.ops.waterfall import waterfall
-from rtlsdr_ft8d_tpu.protocol.unpack import unpack77
+from rtlsdr_ft8d_jax.ops.ldpc import bp_decode, crc_check
+from rtlsdr_ft8d_jax.ops.sync import find_sync
+from rtlsdr_ft8d_jax.ops.waterfall import waterfall
+from rtlsdr_ft8d_jax.protocol.unpack import unpack77
 
 
 def sigma_for_snr(snr_db, amp=0.5):

@@ -9,14 +9,16 @@ random column subset -> GF(2) RREF -> harvest rows of weight <= 7) finds all
 (exactly 83 independent rows, column weight exactly 3) make this
 self-verifying: a corrupted generator could not produce this structure.
 
-Writes rtlsdr_ft8d_tpu/protocol/parity_tables.py with the Nm/Mn tables.
+Writes rtlsdr_ft8d_jax/protocol/parity_tables.py with the Nm/Mn tables.
 """
 
+import os
 import sys
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 import numpy as np
 
-from rtlsdr_ft8d_tpu.protocol.generator import generator_matrix
+from rtlsdr_ft8d_jax.protocol.generator import generator_matrix
 
 rng = np.random.default_rng(0)
 
@@ -86,7 +88,7 @@ Nm = [np.nonzero(H[m])[0].tolist() for m in range(M)]
 Mn = [np.nonzero(H[:, n])[0].tolist() for n in range(N)]
 assert all(len(x) == 3 for x in Mn)
 
-with open("/root/repo/rtlsdr_ft8d_tpu/protocol/parity_tables.py", "w") as f:
+with open(os.path.join(_ROOT, "rtlsdr_ft8d_jax/protocol/parity_tables.py"), "w") as f:
     f.write('"""Sparse LDPC(174,91) parity-check tables (0-based indices).\n\n'
             'DERIVED from the verified generator matrix by scripts/derive_parity.py\n'
             '(randomized information-set decoding over the dual code); structure\n'
@@ -108,4 +110,4 @@ with open("/root/repo/rtlsdr_ft8d_tpu/protocol/parity_tables.py", "w") as f:
     f.write("LDPC_NUM_ROWS = np.array(["
             + ", ".join(str(len(r)) for r in Nm) + "], dtype=np.int32)\n")
 
-print("wrote rtlsdr_ft8d_tpu/protocol/parity_tables.py")
+print("wrote rtlsdr_ft8d_jax/protocol/parity_tables.py")

@@ -6,10 +6,12 @@ idle-CPU soak runs; the in-suite test stays at 1,500 to keep suite time
 bounded. Usage: python3 scripts/fuzz_extended.py [n_msgs] [n_payloads]
 """
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/tests")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
+sys.path.insert(0, os.path.join(_ROOT, "tests"))
 
 import numpy as np
 
@@ -21,8 +23,8 @@ def main():
     from test_fuzz_parity import (_native_pack, _native_unpack, lib,
                                   random_message)
 
-    from rtlsdr_ft8d_tpu.protocol.pack import PackError, pack77
-    from rtlsdr_ft8d_tpu.protocol.unpack import UnpackError, unpack77
+    from rtlsdr_ft8d_jax.protocol.pack import PackError, pack77
+    from rtlsdr_ft8d_jax.protocol.unpack import UnpackError, unpack77
 
     assert lib is not None, "native lib required (make -C native)"
     rng = np.random.default_rng(777)
@@ -69,8 +71,8 @@ def main():
 
     # phase 3: spot-field extraction parity (native batched vs sequential
     # Python, shared hash-table side effects) over packable grammar msgs
-    from rtlsdr_ft8d_tpu.protocol.text import CallsignHashTable
-    from rtlsdr_ft8d_tpu.protocol.unpack import unpack_spot, \
+    from rtlsdr_ft8d_jax.protocol.text import CallsignHashTable
+    from rtlsdr_ft8d_jax.protocol.unpack import unpack_spot, \
         unpack_spots_batch
 
     n_spot = min(n_msgs, 20_000)

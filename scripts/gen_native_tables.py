@@ -1,17 +1,19 @@
 """Generate native/ft8_tables.h from the verified Python protocol tables."""
 
+import os
 import sys
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 import numpy as np
 
-from rtlsdr_ft8d_tpu.protocol.constants import COSTAS_PATTERN, GRAY_MAP
-from rtlsdr_ft8d_tpu.protocol.generator import generator_matrix
-from rtlsdr_ft8d_tpu.protocol.parity_tables import LDPC_NM, LDPC_NUM_ROWS
-from rtlsdr_ft8d_tpu.protocol.text import ARRL_SECTIONS
+from rtlsdr_ft8d_jax.protocol.constants import COSTAS_PATTERN, GRAY_MAP
+from rtlsdr_ft8d_jax.protocol.generator import generator_matrix
+from rtlsdr_ft8d_jax.protocol.parity_tables import LDPC_NM, LDPC_NUM_ROWS
+from rtlsdr_ft8d_jax.protocol.text import ARRL_SECTIONS
 
 G = generator_matrix()
 
-with open("/root/repo/native/ft8_tables.h", "w") as f:
+with open(os.path.join(_ROOT, "native/ft8_tables.h"), "w") as f:
     f.write("// GENERATED by scripts/gen_native_tables.py — do not edit.\n")
     f.write("// Tables verified against the reference golden vector\n")
     f.write("// (/root/reference/rtlsdr_ft8d.c:919-923); see SURVEY.md.\n")

@@ -1,18 +1,20 @@
 """Per-stage device timing of the budgeted 64-channel decode graph.
 
 Times each pipeline stage as a separate jitted function with DEPTH
-pipelined launches (same methodology as bench.py: in-order execution,
-fetch one element of the LAST output as the barrier). Stage totals
+pipelined launches ended by jax.block_until_ready (same methodology as
+bench.py). Stage totals
 slightly exceed the fused graph (barrier/materialization overhead), but
 the RATIOS are what steer optimization.
 
 Usage: python3 scripts/profile_stages.py [budget]
 """
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 import numpy as np
 
@@ -21,14 +23,14 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from rtlsdr_ft8d_tpu.host.cache import enable_compilation_cache
+    from rtlsdr_ft8d_jax.host.cache import enable_compilation_cache
     enable_compilation_cache()
-    from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-    from rtlsdr_ft8d_tpu.ops.ldpc import bp_decode, crc_check
-    from rtlsdr_ft8d_tpu.ops.llr import extract_llrs_flat
-    from rtlsdr_ft8d_tpu.ops.sync import find_sync, sync_scores
-    from rtlsdr_ft8d_tpu.ops.waterfall import waterfall
-    from rtlsdr_ft8d_tpu.pipeline import decode_window_device
+    from rtlsdr_ft8d_jax.host.synth import synthesize_message
+    from rtlsdr_ft8d_jax.ops.ldpc import bp_decode, crc_check
+    from rtlsdr_ft8d_jax.ops.llr import extract_llrs_flat
+    from rtlsdr_ft8d_jax.ops.sync import find_sync, sync_scores
+    from rtlsdr_ft8d_jax.ops.waterfall import waterfall
+    from rtlsdr_ft8d_jax.pipeline import decode_window_device
 
     B = 64
     BUDGET = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
@@ -77,20 +79,13 @@ def main():
     cand = stage_sync(wf)
     llrs = stage_budget_llr(wf, cand)
 
-    def timeit(name, fn, *args, key=None):
-        out = fn(*args)
-        probe = (out[key] if key else
-                 (out[0] if isinstance(out, tuple) else out))
-        np.asarray(probe.reshape(-1)[0:1])
+    def timeit(name, fn, *args):
+        jax.block_until_ready(fn(*args))
         DEPTH, REPS = 64, 5
         ts = []
         for _ in range(REPS):
             t0 = time.time()
-            outs = [fn(*args) for _ in range(DEPTH)]
-            o = outs[-1]
-            probe = (o[key] if key else
-                     (o[0] if isinstance(o, tuple) else o))
-            np.asarray(probe.reshape(-1)[0:1])
+            jax.block_until_ready([fn(*args) for _ in range(DEPTH)])
             ts.append((time.time() - t0) / DEPTH)
         med = float(np.median(ts)) * 1e3
         print(f"{name:24s} {med:7.3f} ms")
@@ -99,7 +94,7 @@ def main():
     total = 0.0
     total += timeit("waterfall(+norm)", stage_wf, i_s, q_s)
     total += timeit("sync_scores", stage_scores, wf)
-    total += timeit("find_sync(scores+topk)", stage_sync, wf, key="score")
+    total += timeit("find_sync(scores+topk)", stage_sync, wf)
     total += timeit("budget topk + LLR", stage_budget_llr, wf, cand)
     total += timeit("bp_decode+crc", stage_bp, llrs)
     print(f"{'stage total':24s} {total:7.3f} ms")
@@ -108,7 +103,7 @@ def main():
     def fused(i, q):
         return decode_window_device(i, q, budget=BUDGET)
 
-    timeit("FUSED full graph", fused, i_s, q_s, key="n_ok")
+    timeit("FUSED full graph", fused, i_s, q_s)
 
 
 if __name__ == "__main__":

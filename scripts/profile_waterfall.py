@@ -1,9 +1,11 @@
 """Sub-step timing of the waterfall stage (gather / DFT GEMM / quantize)."""
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 import numpy as np
 
@@ -12,9 +14,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from rtlsdr_ft8d_tpu.host.cache import enable_compilation_cache
+    from rtlsdr_ft8d_jax.host.cache import enable_compilation_cache
     enable_compilation_cache()
-    from rtlsdr_ft8d_tpu.ops import waterfall as W
+    from rtlsdr_ft8d_jax.ops import waterfall as W
 
     B = 64
     rng = np.random.default_rng(0)
@@ -42,17 +44,12 @@ def main():
     mag2 = gemm(i_f, q_f)
 
     def timeit(name, fn, *args):
-        out = fn(*args)
-        probe = out[0] if isinstance(out, tuple) else out
-        np.asarray(probe.reshape(-1)[0:1])
+        jax.block_until_ready(fn(*args))
         DEPTH, REPS = 64, 5
         ts = []
         for _ in range(REPS):
             t0 = time.time()
-            outs = [fn(*args) for _ in range(DEPTH)]
-            o = outs[-1]
-            probe = o[0] if isinstance(o, tuple) else o
-            np.asarray(probe.reshape(-1)[0:1])
+            jax.block_until_ready([fn(*args) for _ in range(DEPTH)])
             ts.append((time.time() - t0) / DEPTH)
         print(f"{name:18s} {float(np.median(ts))*1e3:7.3f} ms")
 

@@ -26,14 +26,16 @@ Usage: [JAX_PLATFORMS=cpu] python3 scripts/sensitivity.py [trials_per_snr]
 Writes SENSITIVITY.md at the repo root.
 """
 
+import os
 import sys
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 import numpy as np
 
-from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-from rtlsdr_ft8d_tpu.ops.ap import codeword_signs, continuation_texts
-from rtlsdr_ft8d_tpu.pipeline import decode_window
+from rtlsdr_ft8d_jax.host.synth import synthesize_message
+from rtlsdr_ft8d_jax.ops.ap import codeword_signs, continuation_texts
+from rtlsdr_ft8d_jax.pipeline import decode_window
 
 MY_CALL = "VA2GKA"
 MESSAGES = [                       # cycled over trial channels
@@ -158,7 +160,7 @@ def main():
     rows, false_decodes = run(trials)
     n_noise = noise_check()
     ap_vi = len(VARIANTS) - 1
-    with open("/root/repo/SENSITIVITY.md", "w") as f:
+    with open(os.path.join(_ROOT, "SENSITIVITY.md"), "w") as f:
         f.write("# Decode sensitivity (synthesized AWGN channel)\n\n")
         f.write("AP-eligible message mix cycled across channels — "
                 + ", ".join(f"`{m}`" for m in MESSAGES)

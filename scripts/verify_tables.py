@@ -13,15 +13,17 @@ Checks:
      Reports per-row mismatches to localize any bad generator rows.
 """
 
+import os
 import sys
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 import numpy as np
 
-from rtlsdr_ft8d_tpu.protocol.constants import (
+from rtlsdr_ft8d_jax.protocol.constants import (
     COSTAS_OFFSETS, COSTAS_PATTERN, GOLDEN_PACKED, GOLDEN_TONES,
     FT8_PAYLOAD_BITS, FT8_LDPC_K)
-from rtlsdr_ft8d_tpu.protocol.crc import add_crc
-from rtlsdr_ft8d_tpu.protocol.encode import (bytes_to_bits, tones_to_codeword,
+from rtlsdr_ft8d_jax.protocol.crc import add_crc
+from rtlsdr_ft8d_jax.protocol.encode import (bytes_to_bits, tones_to_codeword,
                                              ldpc_encode)
 
 ok = True

@@ -2,10 +2,12 @@
 vs strided conv. Checks exact output equality, then times each full
 waterfall variant on the current backend."""
 
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
 
 import numpy as np
 
@@ -14,9 +16,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from rtlsdr_ft8d_tpu.host.cache import enable_compilation_cache
+    from rtlsdr_ft8d_jax.host.cache import enable_compilation_cache
     enable_compilation_cache()
-    from rtlsdr_ft8d_tpu.ops import waterfall as W
+    from rtlsdr_ft8d_jax.ops import waterfall as W
 
     B = 64
     SB, NF = W.SUB_BLOCK_SIZE, W.NUM_FRAMES
@@ -79,14 +81,12 @@ def main():
         conv_ok = False
 
     def timeit(name, fn):
-        out = fn(i_s, q_s)
-        np.asarray(out.reshape(-1)[0:1])
+        jax.block_until_ready(fn(i_s, q_s))
         DEPTH, REPS = 64, 5
         ts = []
         for _ in range(REPS):
             t0 = time.time()
-            outs = [fn(i_s, q_s) for _ in range(DEPTH)]
-            np.asarray(outs[-1].reshape(-1)[0:1])
+            jax.block_until_ready([fn(i_s, q_s) for _ in range(DEPTH)])
             ts.append((time.time() - t0) / DEPTH)
         print(f"{name:12s} {float(np.median(ts))*1e3:7.3f} ms")
 

@@ -2,15 +2,15 @@
 
 Written as a direct transliteration of the *behavior* of the serial C loops
 (reference rtlsdr_ft8d.c:1395-1450 + ft8_lib's sync/LLR/BP algorithms) to
-cross-check the vectorized TPU kernels: same math, independent structure.
+cross-check the vectorized kernels: same math, independent structure.
 Slow and loopy on purpose — trusted baseline for parity tests.
 """
 
 import numpy as np
 
-from rtlsdr_ft8d_tpu.protocol.constants import (COSTAS_PATTERN, FT8_LDPC_M,
+from rtlsdr_ft8d_jax.protocol.constants import (COSTAS_PATTERN, FT8_LDPC_M,
                                                 FT8_LDPC_N, GRAY_MAP)
-from rtlsdr_ft8d_tpu.protocol.parity_tables import (LDPC_MN, LDPC_NM,
+from rtlsdr_ft8d_jax.protocol.parity_tables import (LDPC_MN, LDPC_NM,
                                                     LDPC_NUM_ROWS)
 
 NUM_BLOCKS, NUM_BIN, NFFT = 92, 256, 1024

@@ -2,16 +2,16 @@
 
 The enumeration bank is the deepest rung of the decode-quality ladder
 (SURVEY §9.5; VERDICT r2 #1): complete continuation hypotheses scored
-as a matched-filter codeword bank on the MXU.
+as a matched-filter codeword bank.
 """
 
 import numpy as np
 
-from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-from rtlsdr_ft8d_tpu.ops.ap import (QsoTracker, clamp_row_cq,
+from rtlsdr_ft8d_jax.host.synth import synthesize_message
+from rtlsdr_ft8d_jax.ops.ap import (QsoTracker, clamp_row_cq,
                                     clamp_row_to_call, codeword_signs,
                                     continuation_texts)
-from rtlsdr_ft8d_tpu.pipeline import Decode, decode_window
+from rtlsdr_ft8d_jax.pipeline import Decode, decode_window
 
 AMP = 0.5
 

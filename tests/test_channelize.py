@@ -4,17 +4,17 @@ ghost dedup, streaming state carry."""
 import numpy as np
 import jax.numpy as jnp
 
-from rtlsdr_ft8d_tpu.ops.channelize import (CHANNEL_STEP_HZ, NUM_CHANNELS,
+from rtlsdr_ft8d_jax.ops.channelize import (CHANNEL_STEP_HZ, NUM_CHANNELS,
                                             StreamingChannelizer, WB_HISTORY,
                                             channel_center_hz, channelize,
                                             dedup_wideband)
-from rtlsdr_ft8d_tpu.ops.decimate import R
-from rtlsdr_ft8d_tpu.pipeline import decode_window
-from rtlsdr_ft8d_tpu.protocol.constants import (BLOCK_SIZE, CAPTURE_RATE,
+from rtlsdr_ft8d_jax.ops.decimate import R
+from rtlsdr_ft8d_jax.pipeline import decode_window
+from rtlsdr_ft8d_jax.protocol.constants import (BLOCK_SIZE, CAPTURE_RATE,
                                                 DOWNSAMPLING,
                                                 TONE_SPACING_HZ)
-from rtlsdr_ft8d_tpu.protocol.encode import encode
-from rtlsdr_ft8d_tpu.protocol.pack import pack77
+from rtlsdr_ft8d_jax.protocol.encode import encode
+from rtlsdr_ft8d_jax.protocol.pack import pack77
 
 
 def _tone(freq_hz, n, amp=1.0):
@@ -158,7 +158,7 @@ def test_streaming_channelizer_odd_frame_chunks():
 def test_int8_streaming_channelizer_matches_float():
     """The int8 ingest path (on-device dequant) must match the float
     path exactly: x/128 in float32 is lossless for int8."""
-    from rtlsdr_ft8d_tpu.ops.channelize import StreamingChannelizerInt8
+    from rtlsdr_ft8d_jax.ops.channelize import StreamingChannelizerInt8
 
     rng = np.random.default_rng(9)
     m = 48

@@ -3,11 +3,11 @@
 import numpy as np
 from scipy.signal import upfirdn
 
-from rtlsdr_ft8d_tpu.ops.decimate import (HISTORY, R, StreamingDecimator,
+from rtlsdr_ft8d_jax.ops.decimate import (HISTORY, R, StreamingDecimator,
                                           TAPS, filter_taps, fs4_shift,
                                           polyphase_decimate)
-from rtlsdr_ft8d_tpu.pipeline import decode_window
-from rtlsdr_ft8d_tpu.protocol.constants import CAPTURE_RATE, DOWNSAMPLING
+from rtlsdr_ft8d_jax.pipeline import decode_window
+from rtlsdr_ft8d_jax.protocol.constants import CAPTURE_RATE, DOWNSAMPLING
 
 import jax.numpy as jnp
 
@@ -94,10 +94,10 @@ def test_full_chain_decode():
     # Build the full-rate signal by upsampling model: synthesize FT8 at
     # 3200 sps, then place it at +fs/4 via zero-stuffing? Instead synthesize
     # directly at 2.4 Msps: tone frequencies fs/4 + f0 + (tone-3.5)*6.25.
-    from rtlsdr_ft8d_tpu.protocol.constants import (BLOCK_SIZE,
+    from rtlsdr_ft8d_jax.protocol.constants import (BLOCK_SIZE,
                                                     TONE_SPACING_HZ)
-    from rtlsdr_ft8d_tpu.protocol.encode import encode
-    from rtlsdr_ft8d_tpu.protocol.pack import pack77
+    from rtlsdr_ft8d_jax.protocol.encode import encode
+    from rtlsdr_ft8d_jax.protocol.pack import pack77
 
     tones = encode(pack77("CQ K1JT FN20"))
     f0 = 500.0
@@ -131,9 +131,9 @@ def test_full_chain_decode():
 
 def test_streaming_host_matches_device():
     """StreamingDecimatorHost (numpy, zero device traffic — the daemon's
-    default on transfer-leaking clients) must match the device GEMM
-    streaming path chunk-for-chunk."""
-    from rtlsdr_ft8d_tpu.ops.decimate import StreamingDecimatorHost
+    --ingest host) must match the device GEMM streaming path
+    chunk-for-chunk."""
+    from rtlsdr_ft8d_jax.ops.decimate import StreamingDecimatorHost
 
     rng = np.random.default_rng(9)
     m = 96

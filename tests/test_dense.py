@@ -2,11 +2,11 @@
 
 import numpy as np
 
-from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-from rtlsdr_ft8d_tpu.parallel.dense import (decode_window_dense,
+from rtlsdr_ft8d_jax.host.synth import synthesize_message
+from rtlsdr_ft8d_jax.parallel.dense import (decode_window_dense,
                                             make_grid_mesh)
-from rtlsdr_ft8d_tpu.pipeline import decode_window
-from rtlsdr_ft8d_tpu.protocol.unpack import unpack77
+from rtlsdr_ft8d_jax.pipeline import decode_window
+from rtlsdr_ft8d_jax.protocol.unpack import unpack77
 
 
 def _decode_texts(out, b):
@@ -84,8 +84,8 @@ def test_dense_deep_decode_matches_single_chip():
     correctly globalized osd channel indices."""
     import jax.numpy as jnp
 
-    from rtlsdr_ft8d_tpu.ops.ap import codeword_signs, continuation_texts
-    from rtlsdr_ft8d_tpu.pipeline import (_merge_osd_decodes,
+    from rtlsdr_ft8d_jax.ops.ap import codeword_signs, continuation_texts
+    from rtlsdr_ft8d_jax.pipeline import (_merge_osd_decodes,
                                           unpack_survivors)
 
     def sigma(snr, amp=0.5):

@@ -8,10 +8,10 @@ import pytest
 
 import jax
 
-from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-from rtlsdr_ft8d_tpu.parallel import elastic
-from rtlsdr_ft8d_tpu.parallel.elastic import ElasticDecoder, device_heartbeat
-from rtlsdr_ft8d_tpu.protocol.unpack import unpack77
+from rtlsdr_ft8d_jax.host.synth import synthesize_message
+from rtlsdr_ft8d_jax.parallel import elastic
+from rtlsdr_ft8d_jax.parallel.elastic import ElasticDecoder, device_heartbeat
+from rtlsdr_ft8d_jax.protocol.unpack import unpack77
 
 MSGS = ["CQ K1JT FN20", "K1ABC W9XYZ EN37"]
 
@@ -90,7 +90,7 @@ def test_midwindow_failure_shrinks_and_retries(monkeypatch):
         if not state["fired"]:
             state["fired"] = True
             dead.update(jax.devices()[6:])   # 2 devices die mid-window
-            raise RuntimeError("simulated ICI collective failure")
+            raise RuntimeError("simulated collective failure")
         return real(i_s, q_s, mesh, budget, **kw)
 
     monkeypatch.setattr(elastic, "decode_window_dense", flaky)
@@ -133,9 +133,9 @@ def test_daemon_elastic_wideband_path():
     returns unpacked per-channel decodes + mesh observability stats."""
     from types import SimpleNamespace
 
-    from rtlsdr_ft8d_tpu.host.daemon import WindowProcessor
-    from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-    from rtlsdr_ft8d_tpu.ops.ap import QsoTracker
+    from rtlsdr_ft8d_jax.host.daemon import WindowProcessor
+    from rtlsdr_ft8d_jax.host.synth import synthesize_message
+    from rtlsdr_ft8d_jax.ops.ap import QsoTracker
 
     B = 8
     msgs = ["CQ K1JT FN20", "K1ABC W9XYZ EN37"]

@@ -18,8 +18,8 @@ LDPC / CRC / unpack stack agrees with the external implementation.
 
 import numpy as np
 
-from rtlsdr_ft8d_tpu.pipeline import decode_window
-from rtlsdr_ft8d_tpu.protocol import constants
+from rtlsdr_ft8d_jax.pipeline import decode_window
+from rtlsdr_ft8d_jax.protocol import constants
 
 # Typed independently from the reference comment (NOT imported from the
 # package) so a corrupted constants table cannot make this test agree
@@ -45,8 +45,8 @@ def test_published_vector_matches_package_table():
 def test_pack_matches_published_bytes():
     # Our pack77 must reproduce the externally published packed bytes,
     # including ft8_lib's 6-char-locator truncation behavior.
-    from rtlsdr_ft8d_tpu.protocol.pack import pack77
-    from rtlsdr_ft8d_tpu.protocol.unpack import unpack77
+    from rtlsdr_ft8d_jax.protocol.pack import pack77
+    from rtlsdr_ft8d_jax.protocol.unpack import unpack77
     for m in (PUBLISHED_INPUT, PUBLISHED_MESSAGE):
         bits = np.asarray(pack77(m), np.uint8)
         assert np.packbits(bits).tobytes() == PUBLISHED_PACKED, m
@@ -115,8 +115,8 @@ def test_published_vector_snr_ladder():
     # the published tones at -10 .. -19 dB (2500 Hz reference) with the
     # production budget config; every rung must decode (-19 dB is the
     # single-pass envelope, SENSITIVITY.md 50% point -18.6 — the fixed
-    # seeds below are ordinary draws verified on both the CPU mesh and
-    # the TPU, not cherry-picked flukes: 6/6 independent seeds decode
+    # seeds below are ordinary draws, not cherry-picked flukes: 6/6
+    # independent seeds decode
     # at -19 with this synthesis).
     rungs = [-10.0, -13.0, -15.0, -17.0, -18.0, -19.0]
     chans = []

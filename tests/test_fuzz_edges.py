@@ -14,10 +14,10 @@ import ctypes
 import numpy as np
 import pytest
 
-from rtlsdr_ft8d_tpu import native
-from rtlsdr_ft8d_tpu.protocol.pack import PackError, pack77
-from rtlsdr_ft8d_tpu.protocol.text import CallsignHashTable, hash_callsign
-from rtlsdr_ft8d_tpu.protocol.unpack import (UnpackError, unpack77,
+from rtlsdr_ft8d_jax import native
+from rtlsdr_ft8d_jax.protocol.pack import PackError, pack77
+from rtlsdr_ft8d_jax.protocol.text import CallsignHashTable, hash_callsign
+from rtlsdr_ft8d_jax.protocol.unpack import (UnpackError, unpack77,
                                              unpack_spot, unpack_spots_batch)
 
 lib = native.load()
@@ -146,7 +146,7 @@ def test_junk_fields_fall_to_free_text():
     live Python<->C++ divergences caught by scripts/fuzz_extended.py
     ('BXUCO /R': bare '/R' stripped-to-empty vs hashed; 'WXM.UO8 9 -D':
     C++ atoi('-D') accepted junk as a +00 report)."""
-    from rtlsdr_ft8d_tpu.protocol.pack import pack77
+    from rtlsdr_ft8d_jax.protocol.pack import pack77
 
     for msg in ["BXUCO /R", "WXM.UO8 9 -D", "K1ABC /P", "/R /R",
                 "K1ABC W9X -D", "BXUCO TNX 73"]:
@@ -160,7 +160,7 @@ def test_junk_fields_fall_to_free_text():
 def test_grammar_edge_regressions():
     """Cases from the protocol-layer review: bare report sign, '/P' after
     a directed CQ, bare directed-CQ modifier — parity AND semantics."""
-    from rtlsdr_ft8d_tpu.protocol.pack import pack77
+    from rtlsdr_ft8d_jax.protocol.pack import pack77
 
     # bare '+' third field: used to escape as an uncaught ValueError
     # (PackError subclasses ValueError so `except PackError` missed it)
@@ -180,8 +180,8 @@ def test_spot_extracts_nonstd_sender():
     """i3=4 non-CQ: the c58 call in the SENDER slot must be spotted
     (consistent with i3 1/2/3; the reference's CQ-only spot slots are a
     deliberately-unreproduced quirk, SURVEY §8)."""
-    from rtlsdr_ft8d_tpu.protocol.pack import pack77
-    from rtlsdr_ft8d_tpu.protocol.unpack import unpack_spot
+    from rtlsdr_ft8d_jax.protocol.pack import pack77
+    from rtlsdr_ft8d_jax.protocol.unpack import unpack_spot
 
     bits = pack77("K1ABC PJ4/W9XYZ RRR")    # h1=0: c58 call is sender
     text, call, loc, is_cq = unpack_spot(bits)

@@ -1,5 +1,5 @@
 """Independent parity anchor: fuzz the message grammar through the native
-C++ codec and the TPU decode pipeline.
+C++ codec and the device decode pipeline.
 
 The judge's round-1 finding (VERDICT.md #1): every parity test compared
 Python against a reference transliteration written by the same author, so a
@@ -18,9 +18,9 @@ import ctypes
 import numpy as np
 import pytest
 
-from rtlsdr_ft8d_tpu import native
-from rtlsdr_ft8d_tpu.protocol.pack import PackError, pack77
-from rtlsdr_ft8d_tpu.protocol.unpack import UnpackError, unpack77
+from rtlsdr_ft8d_jax import native
+from rtlsdr_ft8d_jax.protocol.pack import PackError, pack77
+from rtlsdr_ft8d_jax.protocol.unpack import UnpackError, unpack77
 
 lib = native.load()
 pytestmark = pytest.mark.skipif(lib is None, reason="native lib unavailable")
@@ -99,7 +99,7 @@ def random_message(rng):
                 f"5{rng.integers(2, 10)}9 {rng.integers(0, 8000):04d}")
     if kind == 5:                                   # Field Day (0.3/0.4)
         r = rng.choice(["R ", ""])
-        from rtlsdr_ft8d_tpu.protocol.text import ARRL_SECTIONS
+        from rtlsdr_ft8d_jax.protocol.text import ARRL_SECTIONS
         return (f"{_std_call(rng)} {_std_call(rng)} {r}"
                 f"{rng.integers(1, 33)}{rng.choice(list('ABCDEF'))} "
                 f"{rng.choice(ARRL_SECTIONS)}")
@@ -188,8 +188,8 @@ def test_fuzz_native_encode_to_decode():
     """64 random messages: native C++ pack + native tone encoder ->
     synthesize -> full pipeline decode. Expected text comes from the C++
     unpacker, independent of the Python path under test."""
-    from rtlsdr_ft8d_tpu.host.synth import synthesize_tones
-    from rtlsdr_ft8d_tpu.pipeline import decode_window
+    from rtlsdr_ft8d_jax.host.synth import synthesize_tones
+    from rtlsdr_ft8d_jax.pipeline import decode_window
 
     rng = np.random.default_rng(99)
     B = 64
@@ -235,8 +235,8 @@ def test_batch_spot_unpack_matches_sequential():
     """unpack_spots_batch (native hot path) must match sequential Python
     unpack_spot EXACTLY, including CallsignHashTable side effects (adds
     from earlier messages resolving hashed calls in later ones)."""
-    from rtlsdr_ft8d_tpu.protocol.text import CallsignHashTable
-    from rtlsdr_ft8d_tpu.protocol.unpack import (unpack_spot,
+    from rtlsdr_ft8d_jax.protocol.text import CallsignHashTable
+    from rtlsdr_ft8d_jax.protocol.unpack import (unpack_spot,
                                                  unpack_spots_batch)
 
     rng = np.random.default_rng(321)

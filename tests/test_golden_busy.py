@@ -21,8 +21,8 @@ def _load():
 
 
 def test_busy_band_multipass_decodes_expected_set():
-    from rtlsdr_ft8d_tpu.host.io import read_iq
-    from rtlsdr_ft8d_tpu.pipeline import decode_window
+    from rtlsdr_ft8d_jax.host.io import read_iq
+    from rtlsdr_ft8d_jax.pipeline import decode_window
 
     i, q = read_iq(os.path.join(FIX, "golden_busy.iq"))
     rows = _load()
@@ -46,8 +46,8 @@ def test_busy_band_multipass_decodes_expected_set():
 def test_busy_band_subtraction_recovers_overlapped():
     """At least 3 of the 6 weak overlapped partners (18 Hz from a strong
     signal) must appear ONLY with multipass on."""
-    from rtlsdr_ft8d_tpu.host.io import read_iq
-    from rtlsdr_ft8d_tpu.pipeline import decode_window
+    from rtlsdr_ft8d_jax.host.io import read_iq
+    from rtlsdr_ft8d_jax.pipeline import decode_window
 
     i, q = read_iq(os.path.join(FIX, "golden_busy.iq"))
     rows = _load()
@@ -64,9 +64,9 @@ def test_busy_band_full_stack_decodes_all_18():
     the full stack decodes EVERY signal in the fixture — including the
     one interference-limited partner the AP-less stack misses — with
     zero phantoms."""
-    from rtlsdr_ft8d_tpu.host.io import read_iq
-    from rtlsdr_ft8d_tpu.ops.ap import codeword_signs, continuation_texts
-    from rtlsdr_ft8d_tpu.pipeline import decode_window
+    from rtlsdr_ft8d_jax.host.io import read_iq
+    from rtlsdr_ft8d_jax.ops.ap import codeword_signs, continuation_texts
+    from rtlsdr_ft8d_jax.pipeline import decode_window
 
     i, q = read_iq(os.path.join(FIX, "golden_busy.iq"))
     rows = _load()

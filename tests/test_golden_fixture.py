@@ -22,8 +22,8 @@ def _expected():
 
 
 def test_golden_capture_decodes_exactly():
-    from rtlsdr_ft8d_tpu.host.io import read_iq
-    from rtlsdr_ft8d_tpu.pipeline import decode_window
+    from rtlsdr_ft8d_jax.host.io import read_iq
+    from rtlsdr_ft8d_jax.pipeline import decode_window
 
     i, q = read_iq(os.path.join(FIX, "golden_10sig.iq"))
     res = decode_window((i, q), osd_cands=8, passes=2)
@@ -42,8 +42,8 @@ def test_golden_capture_decodes_exactly():
 def test_golden_capture_single_pass_floor():
     """Even the plain single-pass BP (reference-class config) must find
     the stronger half of the golden list."""
-    from rtlsdr_ft8d_tpu.host.io import read_iq
-    from rtlsdr_ft8d_tpu.pipeline import decode_window
+    from rtlsdr_ft8d_jax.host.io import read_iq
+    from rtlsdr_ft8d_jax.pipeline import decode_window
 
     i, q = read_iq(os.path.join(FIX, "golden_10sig.iq"))
     res = decode_window((i, q))
@@ -55,8 +55,8 @@ def test_golden_capture_single_pass_floor():
 
 def test_golden_capture_via_cli_replay(capsys):
     """The `-r file.iq` CLI surface (reference c:859-887) on the fixture."""
-    from rtlsdr_ft8d_tpu.host.cli import build_parser
-    from rtlsdr_ft8d_tpu.host.daemon import decode_file
+    from rtlsdr_ft8d_jax.host.cli import build_parser
+    from rtlsdr_ft8d_jax.host.daemon import decode_file
 
     args = build_parser().parse_args(
         ["-r", os.path.join(FIX, "golden_10sig.iq"), "-f", "20m",

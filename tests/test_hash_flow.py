@@ -4,10 +4,10 @@ import socket
 
 import numpy as np
 
-from rtlsdr_ft8d_tpu.host.reporter import PskReporter
-from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-from rtlsdr_ft8d_tpu.pipeline import Decode, decode_window
-from rtlsdr_ft8d_tpu.protocol.text import CallsignHashTable
+from rtlsdr_ft8d_jax.host.reporter import PskReporter
+from rtlsdr_ft8d_jax.host.synth import synthesize_message
+from rtlsdr_ft8d_jax.pipeline import Decode, decode_window
+from rtlsdr_ft8d_jax.protocol.text import CallsignHashTable
 
 
 def test_nonstandard_call_resolves_via_hash_table():
@@ -19,7 +19,7 @@ def test_nonstandard_call_resolves_via_hash_table():
     d1 = decode_window(iq1, hashes=hashes)
     assert "CQ PJ4/K1ABC" in {d.text for d in d1}
     # the full call is now in the hash table
-    from rtlsdr_ft8d_tpu.protocol.text import hash_callsign
+    from rtlsdr_ft8d_jax.protocol.text import hash_callsign
     assert hashes.lookup(hash_callsign("PJ4/K1ABC", 22), 22) == "PJ4/K1ABC"
 
 

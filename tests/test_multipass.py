@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-from rtlsdr_ft8d_tpu.pipeline import decode_window
+from rtlsdr_ft8d_jax.host.synth import synthesize_message
+from rtlsdr_ft8d_jax.pipeline import decode_window
 
 
 def _scene(rng):

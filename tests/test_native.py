@@ -5,14 +5,14 @@ import ctypes
 import numpy as np
 import pytest
 
-from rtlsdr_ft8d_tpu import native
-from rtlsdr_ft8d_tpu.protocol.constants import (GOLDEN_PACKED, GOLDEN_TONES,
+from rtlsdr_ft8d_jax import native
+from rtlsdr_ft8d_jax.protocol.constants import (GOLDEN_PACKED, GOLDEN_TONES,
                                                 FT8_PAYLOAD_BITS)
-from rtlsdr_ft8d_tpu.protocol.crc import payload_crc
-from rtlsdr_ft8d_tpu.protocol.encode import bytes_to_bits, encode
-from rtlsdr_ft8d_tpu.protocol.pack import pack77
-from rtlsdr_ft8d_tpu.protocol.text import hash_callsign
-from rtlsdr_ft8d_tpu.protocol.unpack import unpack77
+from rtlsdr_ft8d_jax.protocol.crc import payload_crc
+from rtlsdr_ft8d_jax.protocol.encode import bytes_to_bits, encode
+from rtlsdr_ft8d_jax.protocol.pack import pack77
+from rtlsdr_ft8d_jax.protocol.text import hash_callsign
+from rtlsdr_ft8d_jax.protocol.unpack import unpack77
 
 lib = native.load()
 pytestmark = pytest.mark.skipif(lib is None, reason="native lib not built")
@@ -75,8 +75,8 @@ def test_native_hash22():
 
 def test_native_ldpc_check():
     payload = bytes_to_bits(GOLDEN_PACKED, FT8_PAYLOAD_BITS)
-    from rtlsdr_ft8d_tpu.protocol.crc import add_crc
-    from rtlsdr_ft8d_tpu.protocol.encode import ldpc_encode
+    from rtlsdr_ft8d_jax.protocol.crc import add_crc
+    from rtlsdr_ft8d_jax.protocol.encode import ldpc_encode
     cw = ldpc_encode(add_crc(payload))
     arr, ptr = _bits_ptr(cw)
     assert lib.ft8_ldpc_check(ptr) == 0
@@ -96,7 +96,7 @@ def test_ipfix_frame_structure():
         spots[i].epoch = 1700000000
     buf = (ctypes.c_uint8 * 2048)()
     n = lib.ipfix_build_frame(buf, 2048, b"TEST1", b"AA00",
-                              b"tpu-ft8d-0.1", spots, 2,
+                              b"jax-ft8d-0.1", spots, 2,
                               1700000000, 1, 0xDEADBEEF)
     assert n > 0
     raw = bytes(buf[:n])

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from rtlsdr_ft8d_tpu.ops.osd import encode_matrix, osd_batch, osd_decode
-from rtlsdr_ft8d_tpu.protocol.crc import payload_crc
-from rtlsdr_ft8d_tpu.protocol.encode import ldpc_encode
-from rtlsdr_ft8d_tpu.protocol.pack import pack77
+from rtlsdr_ft8d_jax.ops.osd import encode_matrix, osd_batch, osd_decode
+from rtlsdr_ft8d_jax.protocol.crc import payload_crc
+from rtlsdr_ft8d_jax.protocol.encode import ldpc_encode
+from rtlsdr_ft8d_jax.protocol.pack import pack77
 
 
 def _codeword(text="CQ K1JT FN20"):
@@ -41,7 +41,7 @@ def test_osd_beats_bp_on_soft_noise():
     a solid fraction (the complementary-decoder property)."""
     import jax.numpy as jnp
 
-    from rtlsdr_ft8d_tpu.ops.ldpc import bp_decode
+    from rtlsdr_ft8d_jax.ops.ldpc import bp_decode
 
     bits91, cw = _codeword()
     bp_ok = osd_ok = 0
@@ -87,8 +87,8 @@ def test_osd_batch_paths_match_scalar():
     must both produce IDENTICAL accept decisions and messages to the
     per-candidate osd_decode loop, across decodable, marginal and
     pure-noise LLRs."""
-    from rtlsdr_ft8d_tpu.native import load
-    from rtlsdr_ft8d_tpu.ops.osd import osd_batch_numpy, osd_batch_scalar
+    from rtlsdr_ft8d_jax.native import load
+    from rtlsdr_ft8d_jax.ops.osd import osd_batch_numpy, osd_batch_scalar
 
     llrs = _mixed_llrs()
     m_s, a_s = osd_batch_scalar(llrs)
@@ -106,7 +106,7 @@ def test_osd_batch_pair_depth_exceeds_depth():
     """pair_depth > depth is routed to the numpy path (the native gate
     requires pair_depth <= depth) and used to IndexError there while the
     scalar oracle handled it — all paths must agree on these args too."""
-    from rtlsdr_ft8d_tpu.ops.osd import osd_batch_numpy, osd_batch_scalar
+    from rtlsdr_ft8d_jax.ops.osd import osd_batch_numpy, osd_batch_scalar
 
     llrs = _mixed_llrs()
     m_s, a_s = osd_batch_scalar(llrs, depth=6, pair_depth=10)
@@ -121,7 +121,7 @@ def test_osd_batch_pair_depth_exceeds_depth():
 def test_osd_batch_parity_fuzz():
     """Wider randomized parity fuzz native vs numpy vs scalar (the three
     implementations share no code beyond the E matrix)."""
-    from rtlsdr_ft8d_tpu.ops.osd import osd_batch_numpy, osd_batch_scalar
+    from rtlsdr_ft8d_jax.ops.osd import osd_batch_numpy, osd_batch_scalar
 
     for seed in (7, 1234, 999):
         llrs = _mixed_llrs(seed=seed, n_noise=9)
@@ -142,7 +142,7 @@ def test_osd_batch_vectorized_speed():
     signs = 2.0 * cw.astype(np.float64) - 1.0
     llrs = np.stack([signs * 2.0 + rng.normal(0, 1.8, 174)
                      for _ in range(64)]).astype(np.float32)
-    from rtlsdr_ft8d_tpu.ops.osd import osd_batch_scalar
+    from rtlsdr_ft8d_jax.ops.osd import osd_batch_scalar
     osd_batch(llrs[:4])                             # warm caches
     t0 = time.perf_counter()
     osd_batch(llrs)
@@ -160,11 +160,11 @@ def test_refined_llrs_decode_offgrid_signal():
     import jax
     import jax.numpy as jnp
 
-    from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-    from rtlsdr_ft8d_tpu.ops.ldpc import bp_decode, crc_check
-    from rtlsdr_ft8d_tpu.ops.refine import refine_llrs
-    from rtlsdr_ft8d_tpu.ops.sync import find_sync
-    from rtlsdr_ft8d_tpu.ops.waterfall import waterfall
+    from rtlsdr_ft8d_jax.host.synth import synthesize_message
+    from rtlsdr_ft8d_jax.ops.ldpc import bp_decode, crc_check
+    from rtlsdr_ft8d_jax.ops.refine import refine_llrs
+    from rtlsdr_ft8d_jax.ops.sync import find_sync
+    from rtlsdr_ft8d_jax.ops.waterfall import waterfall
 
     bits91, _ = _codeword("K1ABC W9XYZ EN37")
     sig = synthesize_message("K1ABC W9XYZ EN37", f0_hz=502.7,
@@ -188,10 +188,10 @@ def test_decode_pass_osd_recovers():
     """End-to-end through _decode_pass: the OSD reprocessing stage must
     recover a real BP failure (noise_sigma 3.5 at this seed fails BP but
     is OSD-recoverable — the regime the bench's OSD-benefit gate seeds)."""
-    from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-    from rtlsdr_ft8d_tpu.pipeline import _decode_pass
-    from rtlsdr_ft8d_tpu.protocol.constants import K_MAX_CANDIDATES
-    from rtlsdr_ft8d_tpu.protocol.unpack import CallsignHashTable
+    from rtlsdr_ft8d_jax.host.synth import synthesize_message
+    from rtlsdr_ft8d_jax.pipeline import _decode_pass
+    from rtlsdr_ft8d_jax.protocol.constants import K_MAX_CANDIDATES
+    from rtlsdr_ft8d_jax.protocol.unpack import CallsignHashTable
 
     iq = synthesize_message("K1ABC W9XYZ EN37", f0_hz=612.5,
                             noise_sigma=3.5,
@@ -208,8 +208,8 @@ def test_merge_retries_block_coherent_posteriors():
     """_merge_osd_decodes must recover a message whose triple-flavor
     posterior is OSD-garbage but whose block-coherent posterior is
     clean (the second-attempt branch added with the coherent ladder)."""
-    from rtlsdr_ft8d_tpu.pipeline import _merge_osd_decodes
-    from rtlsdr_ft8d_tpu.protocol.unpack import CallsignHashTable
+    from rtlsdr_ft8d_jax.pipeline import _merge_osd_decodes
+    from rtlsdr_ft8d_jax.protocol.unpack import CallsignHashTable
 
     bits91, cw = _codeword("K1ABC W9XYZ EN37")
     clean = (2.0 * cw.astype(np.float32) - 1.0) * 4.9

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from rtlsdr_ft8d_tpu.protocol.constants import GOLDEN_MESSAGE, GOLDEN_PACKED
-from rtlsdr_ft8d_tpu.protocol.encode import bits_to_bytes, bytes_to_bits
-from rtlsdr_ft8d_tpu.protocol.pack import pack77, pack_free_text
-from rtlsdr_ft8d_tpu.protocol.text import CallsignHashTable, hash_callsign
-from rtlsdr_ft8d_tpu.protocol.unpack import unpack77
+from rtlsdr_ft8d_jax.protocol.constants import GOLDEN_MESSAGE, GOLDEN_PACKED
+from rtlsdr_ft8d_jax.protocol.encode import bits_to_bytes, bytes_to_bits
+from rtlsdr_ft8d_jax.protocol.pack import pack77, pack_free_text
+from rtlsdr_ft8d_jax.protocol.text import CallsignHashTable, hash_callsign
+from rtlsdr_ft8d_jax.protocol.unpack import unpack77
 
 ROUNDTRIP = [
     "CQ K1JT FN20",
@@ -66,15 +66,15 @@ def test_hash_table():
 
 
 def test_rtty_roundtrip():
-    from rtlsdr_ft8d_tpu.protocol.unpack import unpack77 as u
+    from rtlsdr_ft8d_jax.protocol.unpack import unpack77 as u
     for msg in ["TU; W9XYZ K1ABC R 579 0013", "K1ABC W9XYZ 559 0007",
                 "W9XYZ K1ABC R 599 7999"]:
         assert u(pack77(msg)) == msg
 
 
 def test_dxpedition_roundtrip():
-    from rtlsdr_ft8d_tpu.protocol.text import CallsignHashTable
-    from rtlsdr_ft8d_tpu.protocol.unpack import unpack77 as u
+    from rtlsdr_ft8d_jax.protocol.text import CallsignHashTable
+    from rtlsdr_ft8d_jax.protocol.unpack import unpack77 as u
     t = CallsignHashTable()
     t.add("KH1/KH7Z")
     msg = "K1ABC RR73; W9XYZ <KH1/KH7Z> -08"
@@ -82,7 +82,7 @@ def test_dxpedition_roundtrip():
 
 
 def test_rtty_does_not_capture_free_text():
-    from rtlsdr_ft8d_tpu.protocol.unpack import unpack77 as u
+    from rtlsdr_ft8d_jax.protocol.unpack import unpack77 as u
     msg = "HELO 579 0013"   # 13 chars, non-call tokens
     assert u(pack77(msg)) == msg   # must stay free text
 
@@ -90,7 +90,7 @@ def test_rtty_does_not_capture_free_text():
 def test_unpack_spot_structural_fields():
     """Spot call/loc come from the payload fields, not text re-parsing
     (the reference's strtok parse misreads 'CQ RAEM KO85')."""
-    from rtlsdr_ft8d_tpu.protocol.unpack import unpack_spot
+    from rtlsdr_ft8d_jax.protocol.unpack import unpack_spot
 
     cases = [
         ("CQ K1JT FN20", "K1JT", "FN20", True),

@@ -14,13 +14,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-from rtlsdr_ft8d_tpu.ops.ldpc import bp_decode, crc_check
-from rtlsdr_ft8d_tpu.ops.refine import refine_llrs_flat
-from rtlsdr_ft8d_tpu.ops.sync import find_sync
-from rtlsdr_ft8d_tpu.ops.waterfall import waterfall
-from rtlsdr_ft8d_tpu.pipeline import decode_window
-from rtlsdr_ft8d_tpu.protocol.unpack import unpack77
+from rtlsdr_ft8d_jax.host.synth import synthesize_message
+from rtlsdr_ft8d_jax.ops.ldpc import bp_decode, crc_check
+from rtlsdr_ft8d_jax.ops.refine import refine_llrs_flat
+from rtlsdr_ft8d_jax.ops.sync import find_sync
+from rtlsdr_ft8d_jax.ops.waterfall import waterfall
+from rtlsdr_ft8d_jax.pipeline import decode_window
+from rtlsdr_ft8d_jax.protocol.unpack import unpack77
 
 MSG = "K1ABC W9XYZ EN37"
 

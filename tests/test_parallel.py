@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-from rtlsdr_ft8d_tpu.ops.decimate import HISTORY, R, polyphase_decimate
-from rtlsdr_ft8d_tpu.parallel.halo import (decimate_batch_time_sharded,
+from rtlsdr_ft8d_jax.host.synth import synthesize_message
+from rtlsdr_ft8d_jax.ops.decimate import HISTORY, R, polyphase_decimate
+from rtlsdr_ft8d_jax.parallel.halo import (decimate_batch_time_sharded,
                                            decimate_time_sharded,
                                            make_time_mesh)
-from rtlsdr_ft8d_tpu.parallel.sharding import (decode_window_sharded,
+from rtlsdr_ft8d_jax.parallel.sharding import (decode_window_sharded,
                                                make_mesh)
 
 
@@ -66,15 +66,11 @@ def test_batch_time_sharded_decimation():
 
 
 def test_dryrun_multichip():
-    import sys
-    sys.path.insert(0, "/root/repo")
     from __graft_entry__ import dryrun_multichip
     dryrun_multichip(8)
 
 
 def test_entry_compiles():
-    import sys
-    sys.path.insert(0, "/root/repo")
     from __graft_entry__ import entry
     fn, args = entry()
     out = fn(*args)
@@ -83,8 +79,8 @@ def test_entry_compiles():
 
 
 def test_time_sharded_channelization_matches_single_device():
-    from rtlsdr_ft8d_tpu.ops.channelize import WB_HISTORY, channelize
-    from rtlsdr_ft8d_tpu.parallel.halo import channelize_time_sharded
+    from rtlsdr_ft8d_jax.ops.channelize import WB_HISTORY, channelize
+    from rtlsdr_ft8d_jax.parallel.halo import channelize_time_sharded
 
     mesh = make_time_mesh(8)
     m = 8 * 64          # 48000 samples/device >= the 47250-sample halo
@@ -106,8 +102,8 @@ def test_time_sharded_channelization_matches_single_device():
 def test_time_sharded_channelization_odd_frames_per_device():
     """8-way sharding with an ODD per-device frame count: the odd
     channels' (-1)^m rotation must use the global frame offset."""
-    from rtlsdr_ft8d_tpu.ops.channelize import WB_HISTORY, channelize
-    from rtlsdr_ft8d_tpu.parallel.halo import channelize_time_sharded
+    from rtlsdr_ft8d_jax.ops.channelize import WB_HISTORY, channelize
+    from rtlsdr_ft8d_jax.parallel.halo import channelize_time_sharded
 
     mesh = make_time_mesh(8)
     per_dev = 65                       # odd; 65*750=48750 >= 47250 halo
@@ -132,10 +128,10 @@ def test_sharded_budget_osd_matches_single_device():
     global top-k and flat gathers)."""
     import jax
 
-    from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-    from rtlsdr_ft8d_tpu.parallel.sharding import (decode_window_sharded,
+    from rtlsdr_ft8d_jax.host.synth import synthesize_message
+    from rtlsdr_ft8d_jax.parallel.sharding import (decode_window_sharded,
                                                    make_mesh)
-    from rtlsdr_ft8d_tpu.pipeline import decode_window_device
+    from rtlsdr_ft8d_jax.pipeline import decode_window_device
 
     chans = [synthesize_message(f"CQ K{b}AA FN0{b}", f0_hz=300 + 120 * b,
                                 amplitude=0.1, noise_sigma=0.1,

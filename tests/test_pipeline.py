@@ -8,9 +8,9 @@ own check is bugged — SURVEY.md §8) and sweeps SNR and placement.
 import numpy as np
 import pytest
 
-from rtlsdr_ft8d_tpu.host.synth import synthesize_message, synthesize_tones
-from rtlsdr_ft8d_tpu.pipeline import decode_window
-from rtlsdr_ft8d_tpu.protocol.constants import GOLDEN_TONES
+from rtlsdr_ft8d_jax.host.synth import synthesize_message, synthesize_tones
+from rtlsdr_ft8d_jax.pipeline import decode_window
+from rtlsdr_ft8d_jax.protocol.constants import GOLDEN_TONES
 
 
 def texts(decodes):
@@ -123,8 +123,8 @@ def test_global_budget_decodes_active_channels():
     signals still decode, quiet channels cost nothing."""
     import numpy as np
 
-    from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-    from rtlsdr_ft8d_tpu.pipeline import decode_window
+    from rtlsdr_ft8d_jax.host.synth import synthesize_message
+    from rtlsdr_ft8d_jax.pipeline import decode_window
 
     rng = np.random.default_rng(3)
     chans = []
@@ -155,8 +155,8 @@ def test_osd_recovers_bp_failures_and_noise_stays_clean():
     below the BP threshold; pure noise must stay decode-free."""
     import numpy as np
 
-    from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-    from rtlsdr_ft8d_tpu.pipeline import decode_window
+    from rtlsdr_ft8d_jax.host.synth import synthesize_message
+    from rtlsdr_ft8d_jax.pipeline import decode_window
 
     sigma = 0.1
     m = "CQ K1JT FN07"
@@ -192,9 +192,9 @@ def test_mycall_ap_recovers_addressed_replies():
     clean."""
     import numpy as np
 
-    from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-    from rtlsdr_ft8d_tpu.pipeline import ap_prefix_for_call, decode_window
-    from rtlsdr_ft8d_tpu.protocol.pack import pack77
+    from rtlsdr_ft8d_jax.host.synth import synthesize_message
+    from rtlsdr_ft8d_jax.pipeline import ap_prefix_for_call, decode_window
+    from rtlsdr_ft8d_jax.protocol.pack import pack77
 
     # the clamp row's known bits must equal the real packed bits of an
     # addressed message; everything past the 29-bit prefix is free (0)

@@ -6,14 +6,14 @@ The golden vector is the reference's own documented self-test output
 
 import numpy as np
 
-from rtlsdr_ft8d_tpu.protocol.constants import (
+from rtlsdr_ft8d_jax.protocol.constants import (
     COSTAS_OFFSETS, COSTAS_PATTERN, FT8_LDPC_K, FT8_LDPC_M, FT8_LDPC_N,
     FT8_PAYLOAD_BITS, GOLDEN_PACKED, GOLDEN_TONES)
-from rtlsdr_ft8d_tpu.protocol.crc import add_crc, check_crc
-from rtlsdr_ft8d_tpu.protocol.encode import (bytes_to_bits, encode,
+from rtlsdr_ft8d_jax.protocol.crc import add_crc, check_crc
+from rtlsdr_ft8d_jax.protocol.encode import (bytes_to_bits, encode,
                                              ldpc_encode, tones_to_codeword)
-from rtlsdr_ft8d_tpu.protocol.generator import generator_matrix
-from rtlsdr_ft8d_tpu.protocol.parity_tables import (LDPC_MN, LDPC_NM,
+from rtlsdr_ft8d_jax.protocol.generator import generator_matrix
+from rtlsdr_ft8d_jax.protocol.parity_tables import (LDPC_MN, LDPC_NM,
                                                     LDPC_NUM_ROWS)
 
 

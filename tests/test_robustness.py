@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from rtlsdr_ft8d_tpu.pipeline import decode_window
-from rtlsdr_ft8d_tpu.protocol.pack import pack77
-from rtlsdr_ft8d_tpu.protocol.unpack import UnpackError, unpack77
+from rtlsdr_ft8d_jax.pipeline import decode_window
+from rtlsdr_ft8d_jax.protocol.pack import pack77
+from rtlsdr_ft8d_jax.protocol.unpack import UnpackError, unpack77
 
 
 def test_all_zero_window():
@@ -56,8 +56,8 @@ def test_all_features_compose():
     decodable signal found, quiet channels clean."""
     import numpy as np
 
-    from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-    from rtlsdr_ft8d_tpu.pipeline import decode_window
+    from rtlsdr_ft8d_jax.host.synth import synthesize_message
+    from rtlsdr_ft8d_jax.pipeline import decode_window
 
     rng = np.random.default_rng(11)
     msgs = {}

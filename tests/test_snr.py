@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-from rtlsdr_ft8d_tpu.pipeline import decode_window
+from rtlsdr_ft8d_jax.host.synth import synthesize_message
+from rtlsdr_ft8d_jax.pipeline import decode_window
 
 
 def _snr_of(sigma, seed=3):
@@ -36,10 +36,10 @@ def test_estimate_snr_flat_matches_grid():
     the rectangular estimate for the same candidates."""
     import jax.numpy as jnp
 
-    from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-    from rtlsdr_ft8d_tpu.ops.llr import estimate_snr, estimate_snr_flat
-    from rtlsdr_ft8d_tpu.ops.sync import find_sync
-    from rtlsdr_ft8d_tpu.ops.waterfall import waterfall
+    from rtlsdr_ft8d_jax.host.synth import synthesize_message
+    from rtlsdr_ft8d_jax.ops.llr import estimate_snr, estimate_snr_flat
+    from rtlsdr_ft8d_jax.ops.sync import find_sync
+    from rtlsdr_ft8d_jax.ops.waterfall import waterfall
 
     chans = [synthesize_message("CQ K1JT FN20", f0_hz=300 + 200 * b,
                                 amplitude=0.3, noise_sigma=0.1,

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-from rtlsdr_ft8d_tpu.pipeline import decode_window
+from rtlsdr_ft8d_jax.host.synth import synthesize_message
+from rtlsdr_ft8d_jax.pipeline import decode_window
 
 CALLS = ["K1ABC", "W9XYZ", "VA2GKA", "N0XYZ", "G4ABC", "JA1ABC", "VK2DEF",
          "PY2GHI"]
@@ -88,13 +88,13 @@ def test_chunked_topk_matches_exact_on_crowded_band():
     exact full sort."""
     import numpy as np
 
-    from rtlsdr_ft8d_tpu.host.synth import synthesize_tones
-    from rtlsdr_ft8d_tpu.ops.sync import find_sync
-    from rtlsdr_ft8d_tpu.ops.waterfall import waterfall
-    from rtlsdr_ft8d_tpu.pipeline import decode_window_device, \
+    from rtlsdr_ft8d_jax.host.synth import synthesize_tones
+    from rtlsdr_ft8d_jax.ops.sync import find_sync
+    from rtlsdr_ft8d_jax.ops.waterfall import waterfall
+    from rtlsdr_ft8d_jax.pipeline import decode_window_device, \
         unpack_survivors
-    from rtlsdr_ft8d_tpu.protocol.encode import encode
-    from rtlsdr_ft8d_tpu.protocol.pack import pack77
+    from rtlsdr_ft8d_jax.protocol.encode import encode
+    from rtlsdr_ft8d_jax.protocol.pack import pack77
     import jax
     import jax.numpy as jnp
 

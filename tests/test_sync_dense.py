@@ -19,11 +19,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rtlsdr_ft8d_tpu.host.synth import synthesize_message
-from rtlsdr_ft8d_tpu.ops.sync import find_sync
-from rtlsdr_ft8d_tpu.ops.waterfall import waterfall
-from rtlsdr_ft8d_tpu.pipeline import decode_window
-from rtlsdr_ft8d_tpu.protocol.constants import K_MIN_SCORE
+from rtlsdr_ft8d_jax.host.synth import synthesize_message
+from rtlsdr_ft8d_jax.ops.sync import find_sync
+from rtlsdr_ft8d_jax.ops.waterfall import waterfall
+from rtlsdr_ft8d_jax.pipeline import decode_window
+from rtlsdr_ft8d_jax.protocol.constants import K_MIN_SCORE
 
 CALLS = ["K1ABC", "W9XYZ", "N0CAL", "VE3XY", "G4ABC", "JA1DE", "VK2GH",
          "PY2JK"]
